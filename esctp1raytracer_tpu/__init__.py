@@ -1,16 +1,16 @@
-"""esctp1raytracer_tpu — a TPU-native, differentiable Whitted ray tracer.
+"""esctp1raytracer_tpu — a differentiable Whitted ray tracer in JAX.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
 CPU ray tracer (pg42819/EscTp1RayTracer): OBJ/MTL scene loading, pinhole
 camera, Möller–Trumbore triangle intersection, Phong/Blinn shading with
-sampled area lights and shadow rays, and P3 PPM output — re-designed
-TPU-first:
+sampled area lights and shadow rays, and P3 PPM output — re-designed for
+array hardware:
 
-* the scene is a flat, padded SoA primitive table (the TPU analogue of the
+* the scene is a flat, padded SoA primitive table (the analogue of the
   reference's ISPC flattening, reference src/simplify/flatten_iscp.cpp:35-111),
 * closest-hit is a blockwise masked min-reduction over the primitive table
-  (the reference's ISPC `foreach` over triangles, src/ispc/trace.ispc:70-84,
-  mapped onto the MXU via a ray/triangle feature-matmul formulation),
+  (the reference's ISPC `foreach` over triangles, src/ispc/trace.ispc:70-84),
+  in XLA or in one GPU kernel that keeps the running minimum in registers,
 * the renderer is end-to-end differentiable w.r.t. geometry and materials
   with an O(rays) backward pass (gather-and-recompute at the winning hit),
 * rendering scales over a `jax.sharding.Mesh` by sharding the ray grid
@@ -18,10 +18,10 @@ TPU-first:
   done the SPMD way).
 
 Execution strategy matrix (reference CLI flags -> framework modes):
-  sequential       -> mode "jnp"     (single-device jitted render)
+  sequential       -> backend "jnp"  (single-device jitted render)
   --thread         -> mode "sharded" (ray tiles over the device mesh)
-  --ispc           -> mode "pallas"  (fused Pallas intersect kernels)
-  --bvh            -> mode "mxu"     (feature-matmul brute force; the
+  --ispc           -> backend "auto" (the sweep kernel on a GPU)
+  --bvh            -> backend "mxu"  (feature-contraction brute force; the
                         reference BVH is slower than its own brute force,
                         see SURVEY.md quirk 3)
 """

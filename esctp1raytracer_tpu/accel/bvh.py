@@ -10,8 +10,9 @@ triangles), built correctly:
 * the builder is iterative over a numpy array (no 2-threads-per-node
   unbounded fan-out, quirk 11) and produces flat arrays, not pointers.
 
-On TPU the production acceleration path is the Morton cluster grid
-(accel/clusters.py) — trees don't vectorize — so this BVH serves (a) the
+On the device the production acceleration path is the Morton-sorted tile
+culling of the sweep kernel (accel/clusters.py, kernels/cull.py) — trees
+don't vectorize — so this BVH serves (a) the
 component-parity surface, (b) host-side ray queries (`BVH.intersect`) used
 for validation, and (c) the spatial-sort groundwork shared with clusters.
 """
@@ -48,7 +49,7 @@ class BVH:
         """Host-side closest-hit via ordered traversal with early-out.
 
         Returns (t, original_tri_index) with index -1 on miss. Used for
-        cross-checking device results, not on the TPU hot path.
+        cross-checking device results, not on the device hot path.
         """
         from esctp1raytracer_tpu.core.intersect import EPS
 

@@ -8,7 +8,7 @@ Mirrors the reference CLI (src/main.cpp:417-695):
   -w w,h         window size         (default 1024,768 — and unlike the
                  reference, -w actually works; quirk 7 fixed)
   --thread --bvh --ispc   the reference's execution strategies, mapped to
-                 TPU-native backends (see table below)
+                 the framework's backends (see table below)
   --test         run the built-in self-checks (the reference's vestigial
                  test.ispc intent, done properly)
   --debug --trace   verbosity levels (src/debug.h)
@@ -16,14 +16,14 @@ Mirrors the reference CLI (src/main.cpp:417-695):
 Strategy mapping (reference -> framework):
   (none)    sequential C++ loop      -> backend "jnp"   (single-device jit)
   --thread  one thread per row       -> mode  "sharded" (ray grid over mesh)
-  --ispc    SIMD over triangles      -> backend "auto" (fused whole-frame
-            kernel on eligible scenes; "pallas" is a deprecated alias)
-  --bvh     flatten + BVH            -> backend "mxu"   (feature matmul;
+  --ispc    SIMD over triangles      -> backend "auto" (the sweep kernel on
+            a GPU, the jnp reference on the CPU)
+  --bvh     flatten + BVH            -> backend "mxu"   (feature contraction;
             the reference BVH is slower than its own brute force, SURVEY
-            quirk 3, so the accelerated path here is the MXU search)
+            quirk 3, so the accelerated path here is the feature search)
   --bvh --thread  accelerated+threads -> mode "sharded" backend "auto"
 Explicit --mode/--backend win over the mapped flags, and compose:
-`--mode sharded --backend tile` shards the tile kernel over the mesh.
+`--mode sharded --backend sweep` shards the sweep kernel over the mesh.
 
 Extensions: --depth (Whitted reflection bounces), --seed, --vfov,
 --light-mode {area,reference_cpp}, --chunk.
@@ -40,6 +40,7 @@ import time
 
 import numpy as np
 
+from esctp1raytracer_tpu.core.render import BACKENDS
 from esctp1raytracer_tpu.utils.debug import DEBUG, INFO, TRACE, get_logger, set_level
 
 logger = get_logger(__name__)
@@ -62,7 +63,7 @@ def _vec2i(text: str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="esctp1raytracer_tpu",
-        description="TPU-native differentiable Whitted ray tracer",
+        description="Differentiable Whitted ray tracer in JAX",
     )
     p.add_argument("-m", dest="model", default="", help="OBJ model path")
     p.add_argument("-o", dest="output", default="", help="output PPM path")
@@ -75,21 +76,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--thread", action="store_true",
                    help="reference strategy: data-parallel (-> sharded mesh)")
     p.add_argument("--bvh", action="store_true",
-                   help="reference strategy: accelerated (-> MXU backend)")
+                   help="reference strategy: accelerated (-> mxu backend)")
     p.add_argument("--ispc", action="store_true",
-                   help="reference strategy: SIMD (-> Pallas backend)")
+                   help="reference strategy: SIMD (-> auto backend)")
     p.add_argument("--test", action="store_true", help="run self-tests and exit")
     p.add_argument("--debug", action="store_true", help="debug verbosity")
     p.add_argument("--trace", action="store_true", help="trace verbosity")
     p.add_argument("--mode", dest="mode", default="",
-                   choices=["", "single", "sharded", "jnp", "mxu", "pallas",
-                            "tile", "mxtile", "lane", "fused", "auto"],
+                   choices=["", "single", "sharded", *BACKENDS],
                    help="execution mode: single device or sharded over the "
                         "mesh (a backend name here is legacy shorthand for "
                         "--backend NAME)")
     p.add_argument("--backend", dest="backend", default="",
-                   choices=["", "jnp", "mxu", "pallas", "tile", "mxtile",
-                            "lane", "fused", "auto"],
+                   choices=["", *BACKENDS],
                    help="kernel backend; composes with --mode sharded "
                         "(overrides strategy flags)")
     p.add_argument("--depth", type=int, default=1, help="reflection bounces")
@@ -159,6 +158,10 @@ def main(argv=None) -> int:
     # Heavy imports after flag parsing so --help/--test stay fast.
     import jax
 
+    from esctp1raytracer_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from esctp1raytracer_tpu import (
         Camera, RenderConfig, render, scene_from_mesh, write_ppm,
     )
@@ -197,20 +200,14 @@ def main(argv=None) -> int:
         return 2
 
     width, height = args.window
-    _backends = ("jnp", "mxu", "pallas", "tile", "mxtile", "lane", "fused",
-                 "auto")
     mode, backend = args.mode, args.backend
-    if mode in _backends:  # legacy: --mode <backend>
+    if mode in BACKENDS:  # legacy: --mode <backend>
         backend = backend or mode
         mode = "single"
     if not mode:
         mode = "sharded" if args.thread else "single"
     if not backend:
         if args.ispc:
-            # "auto" resolves to the fused whole-frame kernel on eligible
-            # scenes — the framework's ISPC-equivalent fused trace path.
-            # (It used to map to "pallas", the round-1 bundle kernel,
-            # retired round 5: ROOFLINE.md.)
             backend = "auto"
         elif args.bvh:
             # --bvh --thread: accelerated + data-parallel -> the best
@@ -239,7 +236,7 @@ def main(argv=None) -> int:
     timer.fields = {
         "Threaded": str(mode == "sharded").lower(),
         "Flattened": str(backend == "mxu").lower(),
-        "ISPC": str(args.ispc or backend in ("fused", "pallas")).lower(),
+        "ISPC": str(args.ispc).lower(),
         "Mode": f"{mode}/{backend}",
         "Devices": jax.device_count(),
     }

@@ -6,8 +6,8 @@ w = normalize(lookfrom - lookat), and a ray through image fraction (s, t) is
 normalize(lower_left_corner + s*horizontal + t*vertical - origin). Image
 fractions are s = w/(W-1), t = h/(H-1) exactly as the pixel loop computes
 them (src/main.cpp:709-711). Instead of one get_ray call per pixel we emit
-the whole [H, W] ray grid as two arrays — the unit of work on TPU is the
-full ray tile, not the pixel.
+the whole [H, W] ray grid as two arrays — the unit of work is the full
+ray wavefront, not the pixel.
 """
 
 from __future__ import annotations

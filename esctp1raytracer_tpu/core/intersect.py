@@ -5,7 +5,7 @@ The triangle test reproduces the reference's "original jgt code"
 with its exact acceptance window — det outside (-eps, eps), u in [eps, 1],
 v >= eps, u+v <= 1, t in [eps, t_prev) (the thin eps miss band along two
 edges is quirk 16 in SURVEY.md and is reproduced deliberately) — but
-restructured the TPU way:
+restructured for wide array hardware:
 
 * early returns become masks (the ISPC branch-inward restructuring,
   src/ispc/trace.ispc:31-67, taken to its logical end: no branches at all);
@@ -17,10 +17,10 @@ restructured the TPU way:
   differentiable *recompute* of the winning primitive's t/u/v after a
   gather (`closest_hit`), so the backward pass never touches the O(rays ×
   primitives) search;
-* an alternative MXU formulation expresses det and the t/u/v numerators as
-  one [rays, 16] @ [16, 4*tris] matmul of ray moments against per-triangle
-  trilinear coefficient columns (`ray_features` / `tri_features`), turning
-  the hit test into systolic-array work.
+* an alternative formulation (the "mxu" backend) expresses det and the
+  t/u/v numerators as one float32 [rays, 16] @ [16, 4*tris] contraction of
+  ray moments against per-triangle trilinear coefficient columns
+  (`ray_features` / `tri_features`).
 
 Spheres are a new primitive family (the reference has none; required by
 BASELINE.json) and are differentiable w.r.t. center and radius.
@@ -126,7 +126,7 @@ def sphere_intersect(
 
 
 # --------------------------------------------------------------------------
-# MXU formulation: intersection numerators as one feature matmul
+# Feature formulation: intersection numerators as one contraction
 # --------------------------------------------------------------------------
 #
 # With n = e1 x e2 (unnormalized geometric normal), Möller–Trumbore's four
@@ -136,7 +136,7 @@ def sphere_intersect(
 #     u*det  =  det3(o - v0, d, e2)   (expansion in o_i d_j and d_j terms)
 #     v*det  =  det3(d, o - v0, e1)
 # so [det, t*det, u*det, v*det] = ray_features[16] @ tri_features[16, 4]:
-# a K=16 contraction the MXU executes directly. Verified against
+# a K=16 contraction. Verified against
 # mt_intersect in tests/test_intersect.py.
 
 NUM_FEATURES = 16
@@ -192,18 +192,17 @@ def tri_features(v0: jax.Array, v1: jax.Array, v2: jax.Array) -> jax.Array:
 def hits_from_features(
     rf: jax.Array, tf: jax.Array, eps: jax.Array = EPS
 ) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
-    """Evaluate MT for all (ray, triangle) pairs on the MXU.
+    """Evaluate MT for all (ray, triangle) pairs as one contraction.
 
     rf: [R, 16] ray features; tf: [B, 16, 4] triangle features.
     Returns (t, u, v, ok) each [R, B]; t = BIG on miss.
     """
-    # One contraction [R,16] @ [16, B*4] so the MXU sees a single wide
-    # matmul. Precision HIGHEST (bf16x6 ~ f32-faithful): HIGH (bf16x3) is
-    # winner-identical for closest-hit argmin and 17% faster, but its
-    # cancellation error in t_num = o.n - v0.n (measured ~6e-5 relative)
-    # is comparable to the 1e-4 shadow-ray margin and flipped ~6% of
-    # Cornell pixels' occlusion tests on-chip. Revisit only with a wider
-    # shadow margin or a separate any-hit formulation.
+    # One contraction [R,16] @ [16, B*4], at Precision.HIGHEST (full
+    # float32). Any lower precision (bf16x3, TF32) leaves a cancellation
+    # error in t_num = o.n - v0.n (measured ~6e-5 relative) comparable to
+    # the 1e-4 shadow-ray margin, and flipped ~6% of Cornell pixels'
+    # occlusion tests. Revisit only with a wider shadow margin or a
+    # separate any-hit formulation.
     tf_mat = jnp.swapaxes(tf, 0, 1).reshape(NUM_FEATURES, -1)  # [16, B*4]
     s = jnp.dot(rf, tf_mat, preferred_element_type=jnp.float32,
                 precision=jax.lax.Precision.HIGHEST)  # [R, B*4]
@@ -226,12 +225,6 @@ def hits_from_features(
 # --------------------------------------------------------------------------
 
 NO_HIT = np.int32(-1)
-
-# Pass each ray's best sphere hit as a t-ceiling to the triangle-search
-# kernels' cull pre-pass (argmin_hit). Module flag so on-chip probes can
-# A/B it without re-plumbing RenderConfig.
-SPHERE_PREHIT = True
-
 
 @jax.tree_util.register_dataclass
 @dataclass
@@ -318,12 +311,11 @@ def argmin_hit(
     use_mxu: bool = True,
     tri_search=None,
     t_limit: jax.Array = None,
-    coherent: bool = False,
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """Find the winning primitive per ray: (best_t, prim_idx, is_sphere).
 
     Pure search — wrapped in stop_gradient by closest_hit. `tri_search` lets
-    a backend (e.g. the Pallas kernel) replace the triangle scan. `t_limit`
+    a backend (e.g. the sweep kernel) replace the triangle scan. `t_limit`
     (occlusion queries only) is a per-ray distance ceiling hint a backend
     may use to cull work; passing it never changes which hits count — the
     caller still compares best_t against its limit.
@@ -333,24 +325,13 @@ def argmin_hit(
         tri_t, tri_idx = _scan_blocks(o, d, scene.triangles, eps, block_size, use_mxu)
     else:
         hint = t_limit
-        if hint is None and SPHERE_PREHIT:
+        if hint is None:
             # Sphere-first culling: a real sphere hit is a true upper
             # bound on the winner, so triangle blocks entered beyond it
-            # can never contain the closest hit — free t-ceiling for the
-            # kernels' cull pre-pass (misses are BIG, which culls
-            # nothing). Exactness: the ceiling only drops blocks whose
-            # entry-t exceeds a known hit.
+            # can never contain the closest hit — a free t-ceiling for a
+            # culling search (misses are BIG, which culls nothing).
             hint = jax.lax.stop_gradient(sph_t)
-        # `coherent` (shared-origin wavefront, e.g. camera rays) is a
-        # pre-pass performance hint for backends that declare support —
-        # it never changes which hits count.
-        kw = ({"coherent": coherent}
-              if getattr(tri_search, "supports_coherent", False) else {})
-        if hint is not None:
-            tri_t, tri_idx = tri_search(o, d, scene.triangles, eps,
-                                        t_limit=hint, **kw)
-        else:
-            tri_t, tri_idx = tri_search(o, d, scene.triangles, eps, **kw)
+        tri_t, tri_idx = tri_search(o, d, scene.triangles, eps, t_limit=hint)
     is_sphere = sph_t < tri_t
     best_t = jnp.where(is_sphere, sph_t, tri_t)
     prim = jnp.where(is_sphere, sph_idx, tri_idx)
@@ -362,10 +343,10 @@ def select_rows(table: jax.Array, idx: jax.Array, limit: int = 16) -> jax.Array:
     """jnp.take(table, idx, axis=0), as a static select chain when the
     table is tiny.
 
-    The take VJP is a scatter-add serialized over the ~2M update rows
-    (~25-30 ms on-chip at wavefront scale) REGARDLESS of the table size;
-    for a <= `limit`-row table the select chain's VJP is `rows` masked
-    reductions instead — effectively free. Value-identical to take.
+    The take VJP is a scatter-add over every update row (~2M at
+    wavefront scale) regardless of the table size; for a <= `limit`-row
+    table the select chain's VJP is `rows` masked reductions instead.
+    Value-identical to take.
     """
     n = table.shape[0]
     if n > limit:
@@ -381,11 +362,9 @@ def packed_tri_table(tris: TriangleBuffer) -> jax.Array:
 
     Layout: v0 v1 v2 (0:9) | n0 n1 n2 (9:18) | ka kd ks ke (18:30) |
     ns (30) | has_normals (31). One table means the winner fetch is ONE
-    gather — and therefore ONE scatter-add in the VJP. The backward was
-    scatter-bound: each 2M-row scatter costs ~25-30 ms on-chip
-    (row-serialized, nearly independent of the row width), so
-    closest_hit and surface_attributes sharing a single gathered row
-    halves the backward's table-cotangent cost.
+    gather — and therefore ONE scatter-add in the VJP, whose cost grows
+    with the update rows and hardly with the row width, so closest_hit
+    and surface_attributes share a single gathered row.
     """
     return jnp.concatenate(
         [tris.v0, tris.v1, tris.v2, tris.n0, tris.n1, tris.n2,
@@ -402,7 +381,6 @@ def closest_hit(
     use_mxu: bool = True,
     tri_search=None,
     with_row: bool = False,
-    coherent: bool = False,
 ):
     """Differentiable closest hit.
 
@@ -417,12 +395,11 @@ def closest_hit(
     second one (one scatter-add instead of two in the backward).
     """
     # stop_gradient on the *inputs*: differentiation must never trace into
-    # the search (the Pallas kernel has no JVP rule, and the O(R*N) scan
+    # the search (the sweep kernel has no JVP rule, and the O(R*N) scan
     # would otherwise be linearized pointlessly).
     best_t, prim, is_sphere = argmin_hit(
         jax.lax.stop_gradient(o), jax.lax.stop_gradient(d),
         jax.lax.stop_gradient(scene), eps, block_size, use_mxu, tri_search,
-        coherent=coherent,
     )
     safe_prim = jnp.maximum(prim, 0)
 
@@ -477,9 +454,9 @@ def any_hit(
     """Occlusion query: does any primitive block (eps, t_limit)?
 
     The reference's `occlusion` (src/main.cpp:314-329) is an early-exit
-    any-hit; on TPU the branch-free equivalent is closest-hit-then-compare,
-    with the t-ceiling pushed into the backend's block culling (blocks
-    whose slab entry lies beyond the shadow segment are never tested).
+    any-hit. A search hook with an `occlusion` method (the sweep kernel)
+    runs it as an OR-fold with early exit; the XLA paths compute the
+    closest hit under the t-ceiling and compare.
     Non-differentiable (boolean output). Spheres occlude too — an extension
     over the reference, which has no spheres.
     """

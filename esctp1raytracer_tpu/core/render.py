@@ -10,12 +10,11 @@ reference never had is an iterative fixed-depth Whitted reflection loop
 (statically unrolled — depth <= ~4), end-to-end differentiable.
 
 Backends (RenderConfig.backend):
-  "jnp"    — pure jnp brute force (broadcast Möller–Trumbore);
-  "mxu"    — same search expressed as the feature matmul (MXU);
-  "lane"/"tile"/"mxtile" — the Pallas kernel families (kernels/);
-  "fused"/"auto" — whole-frame fused kernel when eligible, else by size;
-  "pallas" — deprecated alias of "auto" (the round-1 bundle kernel it
-  named was retired in round 5 — it won no measured regime, ROOFLINE.md).
+  "jnp"   — the plain reference: blockwise broadcast Möller–Trumbore;
+  "mxu"   — the same search as a float32 feature contraction in XLA;
+  "sweep" — the closest-hit / any-hit Pallas kernel for the GPU
+            (kernels/sweep_gpu.py);
+  "auto"  — decided by platform in `resolve_backend`.
 """
 
 from __future__ import annotations
@@ -51,98 +50,63 @@ class RenderConfig:
     shadow_eps: float = 1e-4
     block_size: int = 512
     ray_chunk: int = 0  # 0 = trace all rays in one wavefront
-    # "jnp"|"mxu"|"tile"|"mxtile"|"lane"|"fused"|"auto"
-    # ("pallas" is accepted as a deprecated alias of "auto")
-    backend: str = "jnp"
+    backend: str = "jnp"  # one of BACKENDS
     seed: int = 0
     # "area" = corrected ISPC-style area-light sampling;
     # "reference_cpp" = bit-faithful reproduction of the C++ path's
     # degenerate corner sampling (quirk 2) for golden-image parity.
     light_mode: str = "area"
+    # Run the sweep kernel in the Pallas interpreter (tests on the CPU).
+    interpret: bool = False
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
 
 
-def _auto_backend(scene: Scene = None) -> str:
-    """Size-based half of the "auto" routing (the fused whole-frame gate
-    runs earlier, in trace_rays): lane < 4k tris <= mxtile <= one VMEM
-    segment < tile. Thresholds measured on-chip:
+# Retired backend names, and what replaces each.
+_REMOVED = {
+    "lane": "sweep", "tile": "sweep", "mxtile": "sweep", "fused": "auto",
+    "pallas": "auto",
+}
+BACKENDS = ("jnp", "mxu", "sweep", "auto")
 
-    Small tables: the ray-lane brute-force kernel (every VPU lane a
-    ray, scalar loop over triangles) — its cost scales with N and
-    beats both the bundle kernel's per-ray floor and the MXU path's
-    [R, N] HBM intermediates. Mid-size tables (one VMEM-resident
-    segment): the MXU tile kernel — the Möller-Trumbore trilinear
-    forms as a [128,16]@[16,512] systolic matmul per block; beats
-    the VPU tile kernel 1.26-1.45x (flagship forward 219 vs 276 ms,
-    scripts/probe_mxu.py), pixel-identical. Beyond one segment the
-    (8 rays x 128 tris) VPU tile kernel takes over: its whole-table
-    residency + 8-ray cull granularity win decisively on the
-    segmented 100k-tri regime (config 5: tile 2.7 s vs mxtile 22 s
-    — per-128-ray cull unions collapse on incoherent soup).
+
+def resolve_backend(cfg: RenderConfig) -> str:
+    """The concrete search backend for `cfg` on the default platform.
+
+    "auto" is decided once, by platform: the sweep kernel on "gpu", and
+    on "cpu" the plain `jnp` reference, which is the CPU program. Any
+    other platform raises. The sweep kernel on a non-GPU platform raises
+    unless `cfg.interpret` asks for the Pallas interpreter.
     """
-    n = scene.triangles.capacity if scene is not None else 0
-    if n < 4096:
-        return "lane"
-    from esctp1raytracer_tpu.kernels.rt_mxu import MXU_TRI_LIMIT
-
-    return "mxtile" if n <= MXU_TRI_LIMIT else "tile"
-
-
-def _canon_backend(backend: str) -> str:
-    """"pallas" named the round-1 bundle kernel; it was retired in round
-    5 after winning no measured regime (ROOFLINE.md), and the name now
-    aliases "auto" so existing configs/CLIs keep working."""
-    return "auto" if backend == "pallas" else backend
-
-
-def resolve_backend(cfg: RenderConfig, scene: Scene = None) -> str:
-    """Concrete backend name trace_rays will route (cfg, scene) to —
-    the fused whole-frame gate first, then the size-based auto rule.
-    Reporting/artifact helper (MATRIX_rN legs record which kernel ran);
-    traces nothing."""
-    backend = _canon_backend(cfg.backend)
-    if backend in ("fused", "auto") and scene is not None:
-        from esctp1raytracer_tpu.kernels.fused_pallas import (
-            _fallback_cfg, fused_supported,
-        )
-
-        if fused_supported(scene, cfg.depth, cfg.light_mode):
-            return "fused"
-        if backend == "fused":
-            backend = _fallback_cfg(scene, cfg).backend
+    backend = cfg.backend
+    if backend in _REMOVED:
+        raise ValueError(
+            f"backend {backend!r} was removed; use {_REMOVED[backend]!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    platform = jax.default_backend()
     if backend == "auto":
-        backend = _auto_backend(scene)
+        if platform == "gpu":
+            return "sweep"
+        if platform == "cpu":
+            return "jnp"
+        raise ValueError(f"backend 'auto' has no route on {platform!r}")
+    if backend == "sweep" and platform != "gpu" and not cfg.interpret:
+        raise ValueError(
+            f"the sweep kernel compiles only for a GPU, not {platform!r}; "
+            "pass interpret=True to run it in the Pallas interpreter")
     return backend
 
 
-def _search_fns(cfg: RenderConfig, scene: Scene = None):
-    """Resolve the closest-hit / any-hit triangle search for a backend.
+def _search_fns(cfg: RenderConfig):
+    """(tri_search hook or None, use_mxu) for the resolved backend."""
+    backend = resolve_backend(cfg)
+    if backend == "sweep":
+        from esctp1raytracer_tpu.kernels.sweep_gpu import SweepSearch
 
-    "auto" picks per scene size (thresholds measured on-chip, see
-    _auto_backend): lane < 4k tris <= mxtile <= one VMEM segment < tile.
-    """
-    backend = _canon_backend(cfg.backend)
-    if backend == "auto":
-        backend = _auto_backend(scene)
-    if backend == "lane":
-        from esctp1raytracer_tpu.kernels.lane_pallas import lane_tri_search
-
-        return lane_tri_search, True
-    if backend == "tile":
-        from esctp1raytracer_tpu.kernels.rt_tile import tile_tri_search
-
-        return tile_tri_search, True
-    if backend == "mxtile":
-        from esctp1raytracer_tpu.kernels.rt_mxu import mxu_tile_search
-
-        return mxu_tile_search, True
-    if backend == "mxu":
-        return None, True
-    if backend == "jnp":
-        return None, False
-    raise ValueError(f"unknown backend {cfg.backend!r}")
+        return SweepSearch(interpret=cfg.interpret), False
+    return None, backend == "mxu"
 
 
 def trace_rays(
@@ -190,29 +154,7 @@ def trace_rays(
              ray_ids.reshape(-1, chunk)),
         )
         return color.reshape(-1, 3)[:r]
-    if _canon_backend(cfg.backend) in ("fused", "auto"):
-        from esctp1raytracer_tpu.kernels.fused_pallas import (
-            _fallback_cfg, fused_supported, fused_trace_diff,
-        )
-
-        if tri_search is not None:
-            # An injected search (e.g. the prim-sharded mesh search) means
-            # the whole-frame kernel cannot be used: resolve to its
-            # fallback backend instead of falling through to _search_fns
-            # (which has no "fused" branch).
-            if cfg.backend == "fused":
-                cfg = _fallback_cfg(scene, cfg)
-        elif fused_supported(scene, cfg.depth, cfg.light_mode):
-            # Whole-frame kernel (primary + shadow + shading in ONE
-            # Pallas call — Cornell 5.5 vs 39 ms on the lane path);
-            # differentiable via its custom VJP (XLA-path re-derivation
-            # at identical draws), so "auto" is grad-safe.
-            return fused_trace_diff(o, d, scene, ray_ids, cfg)
-        if cfg.backend == "fused":
-            # Unsupported shape (depth>4, reference_cpp sampling, no
-            # lights, or an over-limit table): lane/tile fallback.
-            cfg = _fallback_cfg(scene, cfg)
-    backend_search, use_mxu = _search_fns(cfg, scene)
+    backend_search, use_mxu = _search_fns(cfg)
     if tri_search is None:
         tri_search = backend_search
     eps = jnp.float32(cfg.eps)
@@ -233,15 +175,11 @@ def trace_rays(
     for bounce in range(cfg.depth):
         # with_row: the winner's packed table row is gathered once here
         # and shared with shading — one scatter-add per bounce in the
-        # VJP instead of two (the backward is scatter-bound, ROOFLINE.md).
+        # VJP instead of two.
         hit, trow = closest_hit(
             o, d, scene, eps,
             block_size=cfg.block_size, use_mxu=use_mxu, tri_search=tri_search,
             with_row=True,
-            # Bounce 0 is the camera wavefront (shared origin): backends
-            # that support it use the cheap interval cull pre-pass.
-            # Reflection bounces originate at scattered hit points.
-            coherent=(bounce == 0),
         )
         if current_level() >= TRACE:
             # The reference dumps per-hit info under --trace

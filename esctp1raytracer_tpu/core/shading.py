@@ -63,8 +63,8 @@ def surface_attributes(
 
     trow is the winner's packed_tri_table row [R, 32] when the caller
     already gathered it (closest_hit with_row=True): each jnp.take's VJP
-    is a ~25-30 ms scatter-add of 2M rows on-chip, so the pipeline
-    gathers once and shares the row.
+    is a scatter-add over every ray, so the pipeline gathers once and
+    shares the row.
     """
     safe_prim = jnp.maximum(hit.prim, 0)
     tris, sph = scene.triangles, scene.spheres

@@ -26,9 +26,8 @@ def init_distributed(
 ) -> int:
     """Initialize multi-host JAX if configured; return process count.
 
-    No-ops on a single host (the common case for tests and one-chip runs).
-    Arguments default to the standard JAX_* / cloud-TPU environment, so on
-    a pod slice a bare `init_distributed()` works.
+    No-ops on a single host (the common case for tests and one-card runs).
+    Arguments default to the standard JAX_* environment variables.
     """
     explicit = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if explicit or os.environ.get("JAX_NUM_PROCESSES"):

@@ -60,9 +60,10 @@ def _prim_sharded_search(cfg: RenderConfig, axis: str):
     """Triangle search with the primitive table split along a mesh axis.
 
     Each device scans its contiguous slice of the (replicated) table, then
-    the per-shard running minima are combined with an all_gather + argmin
-    over the axis — numerically identical to the single-device scan
-    because ties resolve to the lowest triangle index on both levels.
+    the per-shard running minima are combined with two `pmin`s over the
+    axis (t, then the lowest index among shards at that t) — numerically
+    identical to the single-device scan because ties resolve to the
+    lowest triangle index on both levels.
     """
 
     def search(o, d, tris, eps, t_limit=None):

@@ -1,6 +1,6 @@
 """Scene flattening + procedural scene builders.
 
-`scene_from_mesh` is the TPU-native replacement for the reference's two
+`scene_from_mesh` is the array-native replacement for the reference's two
 flatteners (`flatten_scene`, src/simplify/flatten.cpp:50-82, and
 `flatten_scene_ispc`, src/simplify/flatten_iscp.cpp:35-111): nested
 per-geometry data becomes one padded SoA triangle table with per-triangle

@@ -1,6 +1,6 @@
 """Scene data model: flat, padded, fixed-shape SoA buffers (JAX pytrees).
 
-This is the TPU-native analogue of the reference's two scene forms:
+This is the array-native analogue of the reference's two scene forms:
 
 * the nested per-geometry form `tracer::scene{geometry[], light_sources[]}`
   (reference src/scene/scene.h:9-44) survives only transiently as
@@ -11,7 +11,7 @@ This is the TPU-native analogue of the reference's two scene forms:
   — becomes the padded SoA `TriangleBuffer`/`LightTable` below, extended
   with a `SphereBuffer` of parametric spheres the reference lacks.
 
-Design rules (XLA/TPU):
+Design rules (XLA):
 * every array has a static shape, padded up to a tile-friendly multiple;
 * padded (invalid) primitives carry a `valid=False` mask and degenerate
   geometry so they can never win the closest-hit argmin — the role the

@@ -104,9 +104,9 @@ class TestModeBackendComposition:
         # --thread composes with --bvh/--ispc the same way).
         out = str(tmp_path / "st.ppm")
         rc = main(["-m", cornell_obj, "-w", "24,18", "-o", out,
-                   "--mode", "sharded", "--backend", "tile"])
+                   "--mode", "sharded", "--backend", "mxu"])
         assert rc == 0
-        assert "sharded/tile" in capsys.readouterr().err
+        assert "sharded/mxu" in capsys.readouterr().err
         assert read_ppm(out).shape == (18, 24, 3)
 
     def test_bvh_thread_maps_to_sharded_auto(self, cornell_obj, tmp_path, capsys):
@@ -118,13 +118,13 @@ class TestModeBackendComposition:
 
     def test_legacy_mode_backend_shorthand(self, cornell_obj, capsys):
         # --mode <backend> keeps working as shorthand for --backend.
-        rc = main(["-m", cornell_obj, "-w", "16,12", "--mode", "lane"])
+        rc = main(["-m", cornell_obj, "-w", "16,12", "--mode", "mxu"])
         assert rc == 0
-        assert "single/lane" in capsys.readouterr().err
+        assert "single/mxu" in capsys.readouterr().err
 
 
 class TestExplicitBackends:
-    @pytest.mark.parametrize("mode", ["mxtile", "tile", "lane", "auto"])
+    @pytest.mark.parametrize("mode", ["jnp", "mxu", "auto"])
     def test_mode_flag_renders(self, cornell_obj, tmp_path, mode):
         """Every kernel backend must be selectable from the CLI (the
         reproduce-the-auto-decision workflow)."""
@@ -135,3 +135,9 @@ class TestExplicitBackends:
         img = read_ppm(out)
         assert img.shape == (18, 24, 3)
         assert img.max() > 0.1
+
+
+@pytest.mark.parametrize("name", ["lane", "tile", "mxtile", "fused", "pallas"])
+def test_removed_backends_are_refused(cornell_obj, name):
+    with pytest.raises(SystemExit):
+        main(["-m", cornell_obj, "-w", "16,12", "--backend", name])

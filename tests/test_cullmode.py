@@ -1,23 +1,14 @@
-"""Cull pre-pass modes: interval mask conservativeness, extraction
-compaction exactness + overflow fallback, and winner parity across
-argsort / exact / interval (round-4 pre-pass rework)."""
+"""The cull pre-pass of the sweep kernel's culled entry: the interval
+(per-group) slab mask must keep every tile the exact per-ray mask keeps."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from esctp1raytracer_tpu import Camera
-from esctp1raytracer_tpu.kernels import rt_mxu, rt_tile
-from esctp1raytracer_tpu.kernels.cull import (
-    block_cull_mask,
-    extract_lists,
-    group_cull_mask,
-)
+from esctp1raytracer_tpu.kernels.cull import block_cull_mask, group_cull_mask
+from esctp1raytracer_tpu.kernels.sweep_gpu import _sorted_tiles
 from esctp1raytracer_tpu.scene import builders
-
-EPS = jnp.float32(np.finfo(np.float32).eps)
-
 
 @pytest.fixture(scope="module")
 def mesh():
@@ -35,8 +26,7 @@ class TestGroupCullMask:
     def test_conservative_vs_per_ray(self, mesh, rays):
         """The interval mask must be a superset of the exact 8-ray OR."""
         o, d = rays
-        from esctp1raytracer_tpu.kernels.rt_tile import tri_constants_sub
-        _, aabbs, *_ = tri_constants_sub(mesh.triangles)
+        _, aabbs, _ = _sorted_tiles(mesh.triangles)
         ns = aabbs.shape[1]
         exact = np.asarray(jnp.any(
             block_cull_mask(o, d, aabbs, None).reshape(-1, 8, ns), axis=1))
@@ -45,8 +35,7 @@ class TestGroupCullMask:
 
     def test_conservative_with_t_limit(self, mesh, rays):
         o, d = rays
-        from esctp1raytracer_tpu.kernels.rt_tile import tri_constants_sub
-        _, aabbs, *_ = tri_constants_sub(mesh.triangles)
+        _, aabbs, _ = _sorted_tiles(mesh.triangles)
         ns = aabbs.shape[1]
         tl = jnp.where(jnp.arange(o.shape[0]) % 3 == 0, -1.0, 4.0
                        ).astype(jnp.float32)
@@ -61,8 +50,7 @@ class TestGroupCullMask:
         o = jnp.asarray(rng.uniform(-3, 3, (64, 3)).astype(np.float32))
         d = jnp.asarray(rng.normal(size=(64, 3)).astype(np.float32))
         d = d / jnp.linalg.norm(d, axis=1, keepdims=True)
-        from esctp1raytracer_tpu.kernels.rt_tile import tri_constants_sub
-        _, aabbs, *_ = tri_constants_sub(mesh.triangles)
+        _, aabbs, _ = _sorted_tiles(mesh.triangles)
         ns = aabbs.shape[1]
         exact = np.asarray(jnp.any(
             block_cull_mask(o, d, aabbs, None).reshape(-1, 8, ns), axis=1))
@@ -70,224 +58,16 @@ class TestGroupCullMask:
         assert not (exact & ~hull).any()
 
 
-class TestExtractLists:
-    def test_matches_argsort(self):
-        rng = np.random.default_rng(1)
-        gm = jnp.asarray(rng.random((40, 96)) < 0.1)
-        ids, cnt = extract_lists(gm, k=32)
-        ref_ids = jnp.argsort(~gm, axis=1, stable=True).astype(jnp.int32)
-        ref_cnt = jnp.sum(gm, axis=1).astype(jnp.int32)
-        cnt_n, ref_cnt_n = np.asarray(cnt), np.asarray(ref_cnt)
-        assert (cnt_n == ref_cnt_n).all()
-        ids_n, ref_n = np.asarray(ids), np.asarray(ref_ids)
-        for r in range(gm.shape[0]):
-            np.testing.assert_array_equal(ids_n[r, :cnt_n[r]],
-                                          ref_n[r, :cnt_n[r]])
+@pytest.mark.parametrize("with_limit", [False, True])
+def test_conservative_at_kernel_group(mesh, rays, with_limit):
+    """At the kernel's own group size (one program's rays)."""
+    from esctp1raytracer_tpu.kernels.sweep_gpu import RAY_BLOCK
 
-    def test_overflow_falls_back_dense(self):
-        """cnt > k rows must sweep everything (ids = iota, cnt = NB)."""
-        gm = jnp.ones((3, 64), bool)
-        ids, cnt = extract_lists(gm, k=8)
-        assert (np.asarray(cnt) == 64).all()
-        np.testing.assert_array_equal(np.asarray(ids),
-                                      np.tile(np.arange(64), (3, 1)))
-
-    def test_k_clamped_to_width(self):
-        gm = jnp.asarray(np.eye(4, dtype=bool))
-        ids, cnt = extract_lists(gm, k=32)  # k > NB=4
-        assert (np.asarray(cnt) == 1).all()
-        np.testing.assert_array_equal(np.asarray(ids)[:, 0], np.arange(4))
-
-
-class TestHierLists:
-    """Two-level pre-pass (rt_tile._hier_cull_lists): exact kept-prefix
-    equality with the flat argsort mode (up to empty-sub-block drops and
-    the overflow fallback, both conservative-correct)."""
-
-    def _check_prefix(self, o, d, tl, aabbs):
-        nsub = aabbs.shape[1]
-        ids_a, cnt_a = rt_tile._cull_lists(o, d, tl, aabbs, "argsort")
-        ids_h, cnt_h = rt_tile._cull_lists(o, d, tl, aabbs, "hier")
-        ca, ch = np.asarray(cnt_a), np.asarray(cnt_h)
-        ia, ih = np.asarray(ids_a), np.asarray(ids_h)
-        # hier masks all-empty (inverted-sentinel) sub-blocks at both
-        # levels; the flat slab test keeps them. Parity is over the
-        # non-empty members of the argsort prefix.
-        A = np.asarray(aabbs)
-        empty = np.any(A[0:3] > A[3:6], axis=0)
-        for r in range(len(ca)):
-            # With empties masked, a non-overflow hier cnt can never
-            # reach nsub when empties exist, so cnt==nsub detects the
-            # dense fallback exactly.
-            if ch[r] == nsub and (empty.any() or ca[r] != nsub):
-                np.testing.assert_array_equal(ih[r], np.arange(nsub))
-            else:
-                pa = ia[r, :ca[r]]
-                pa = pa[~empty[pa]]
-                assert ch[r] == len(pa)
-                np.testing.assert_array_equal(pa, ih[r, :ch[r]])
-
-    def test_lists_match_argsort(self, mesh, rays):
-        o, d = rays
-        from esctp1raytracer_tpu.kernels.rt_tile import tri_constants_sub
-        _, aabbs, *_ = tri_constants_sub(mesh.triangles)
-        self._check_prefix(o, d, None, aabbs)
-
-    def test_lists_match_argsort_t_limit(self, mesh, rays):
-        o, d = rays
-        from esctp1raytracer_tpu.kernels.rt_tile import tri_constants_sub
-        _, aabbs, *_ = tri_constants_sub(mesh.triangles)
-        tl = jnp.where(jnp.arange(o.shape[0]) % 3 == 0, -1.0, 4.0
-                       ).astype(jnp.float32)
-        self._check_prefix(o, d, tl, aabbs)
-
-    def test_scattered_origins(self, mesh):
-        rng = np.random.default_rng(7)
-        o = jnp.asarray(rng.uniform(-3, 3, (64, 3)).astype(np.float32))
-        d = jnp.asarray(rng.normal(size=(64, 3)).astype(np.float32))
-        d = d / jnp.linalg.norm(d, axis=1, keepdims=True)
-        from esctp1raytracer_tpu.kernels.rt_tile import tri_constants_sub
-        _, aabbs, *_ = tri_constants_sub(mesh.triangles)
-        self._check_prefix(o, d, None, aabbs)
-
-    def test_empty_subblocks_masked(self, mesh, rays):
-        """Padding-heavy tables: all-empty sub-blocks never enter hier
-        kept prefixes nor consume HIER_K budget (symmetric mask at both
-        levels — the sliced-scene tail case)."""
-        o, d = rays
-        from esctp1raytracer_tpu.kernels.rt_tile import tri_constants_sub
-        from esctp1raytracer_tpu.scene.types import TriangleBuffer
-        padded = jax.tree.map(
-            lambda a, b: jnp.concatenate([a, b], axis=0),
-            mesh.triangles, TriangleBuffer.empty(512))
-        _, aabbs, *_ = tri_constants_sub(padded)
-        A = np.asarray(aabbs)
-        empty = np.any(A[0:3] > A[3:6], axis=0)
-        assert empty.sum() >= 4, "fixture produced no empty sub-blocks"
-        self._check_prefix(o, d, None, aabbs)
-        nsub = aabbs.shape[1]
-        ids_h, cnt_h = rt_tile._cull_lists(o, d, None, aabbs, "hier")
-        ih, ch = np.asarray(ids_h), np.asarray(cnt_h)
-        assert (ch < nsub).all(), \
-            "empty superblocks forced the overflow fallback"
-        for r in range(len(ch)):
-            assert not empty[ih[r, :ch[r]]].any()
-
-    def test_overflow_falls_back_dense(self, mesh, rays):
-        """> HIER_K kept superblocks -> dense iota list, cnt = nsub."""
-        o, d = rays
-        from esctp1raytracer_tpu.kernels.rt_tile import tri_constants_sub
-        _, aabbs, *_ = tri_constants_sub(mesh.triangles)
-        nsub = aabbs.shape[1]
-        old = rt_tile.HIER_K
-        try:
-            rt_tile.HIER_K = 1  # every multi-superblock bundle overflows
-            ids, cnt = rt_tile._cull_lists(o, d, None, aabbs, "hier")
-        finally:
-            rt_tile.HIER_K = old
-        ids_a, cnt_a = rt_tile._cull_lists(o, d, None, aabbs, "argsort")
-        over = np.asarray(cnt) == nsub
-        assert over.any(), "fixture never overflowed — HIER_K=1 too big?"
-        for r in np.nonzero(over)[0]:
-            np.testing.assert_array_equal(np.asarray(ids)[r],
-                                          np.arange(nsub))
-        # non-overflow rows still match argsort exactly (minus the
-        # empty sub-blocks hier masks and argsort keeps)
-        A = np.asarray(aabbs)
-        empty = np.any(A[0:3] > A[3:6], axis=0)
-        ca, ia = np.asarray(cnt_a), np.asarray(ids_a)
-        for r in np.nonzero(~over)[0]:
-            pa = ia[r, :ca[r]]
-            assert np.asarray(cnt)[r] == (~empty[pa]).sum()
-
-    def test_nsub_not_multiple_of_group(self):
-        """nsub % HIER_GROUP != 0: filler sub-ids must never be listed."""
-        sc = builders.mesh_scene(4)  # 5120+2+2 tris -> nsub=41
-        from esctp1raytracer_tpu.kernels.rt_tile import tri_constants_sub
-        _, aabbs, *_ = tri_constants_sub(sc.triangles)
-        assert aabbs.shape[1] % rt_tile.HIER_GROUP != 0
-        cam = Camera.look_at((0, 2, 6), (0, 1, 0), vfov=60.0, aspect=1.0)
-        o, d = cam.ray_grid(16, 16)
-        o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-        ids, cnt = rt_tile._cull_lists(o, d, None, aabbs, "hier")
-        nsub = aabbs.shape[1]
-        idn, cn = np.asarray(ids), np.asarray(cnt)
-        for r in range(len(cn)):
-            assert (idn[r, :cn[r]] < nsub).all()
-        self_check = TestHierLists._check_prefix
-        self_check(self, o, d, None, aabbs)
-
-
-class TestModeParity:
-    @pytest.mark.parametrize("mode", ["exact", "interval", "hier"])
-    def test_tile_winner_parity(self, mesh, rays, mode):
-        o, d = rays
-        old = rt_tile.CULL_MODE
-        try:
-            rt_tile.CULL_MODE = "argsort"
-            t_ref, p_ref = rt_tile.tile_tri_search(o, d, mesh.triangles, EPS,
-                                                   coherent=True)
-            rt_tile.CULL_MODE = mode
-            t_m, p_m = rt_tile.tile_tri_search(o, d, mesh.triangles, EPS,
-                                               coherent=True)
-        finally:
-            rt_tile.CULL_MODE = old
-        np.testing.assert_array_equal(np.asarray(p_m), np.asarray(p_ref))
-        np.testing.assert_array_equal(np.asarray(t_m), np.asarray(t_ref))
-
-    @pytest.mark.parametrize("mode", ["exact", "interval"])
-    def test_mxu_occl_parity(self, mesh, rays, mode):
-        o, d = rays
-        tl = jnp.full((o.shape[0],), 4.0, jnp.float32)
-        old = rt_mxu.CULL_MODE
-        try:
-            rt_mxu.CULL_MODE = "argsort"
-            ref = rt_mxu.mxu_tile_occlusion(o, d, tl, mesh.triangles, EPS)
-            rt_mxu.CULL_MODE = mode
-            got = rt_mxu.mxu_tile_occlusion(o, d, tl, mesh.triangles, EPS)
-        finally:
-            rt_mxu.CULL_MODE = old
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-    @pytest.mark.parametrize("period", [1, 8])
-    def test_occl_early_exit_parity(self, mesh, period):
-        """OCCL_EARLY_EXIT (entry-ordered lists + chunked while_loop) is
-        answer-identical to the production fori sweep — kept off by
-        default as a measured on-chip negative (ROOFLINE r4), so the
-        parity guard is what keeps the machinery honest."""
-        rng = np.random.default_rng(3)
-        o = jnp.asarray(rng.uniform(-2, 2, (128, 3)).astype(np.float32))
-        d = jnp.asarray(rng.normal(size=(128, 3)).astype(np.float32))
-        d = d / jnp.linalg.norm(d, axis=1, keepdims=True)
-        tl = jnp.asarray(np.where(rng.random(128) < 0.2, -1.0,
-                                  rng.uniform(0.5, 6.0, 128)
-                                  ).astype(np.float32))
-        old = rt_tile.OCCL_EARLY_EXIT
-        try:
-            rt_tile.OCCL_EARLY_EXIT = 0
-            ref = rt_tile.tile_occlusion(o, d, tl, mesh.triangles, EPS)
-            rt_tile.OCCL_EARLY_EXIT = period
-            got = rt_tile.tile_occlusion(o, d, tl, mesh.triangles, EPS)
-        finally:
-            rt_tile.OCCL_EARLY_EXIT = old
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-    def test_auto_resolution(self):
-        # auto: flat argsort EVERYWHERE. Both alternative pre-passes are
-        # measured end-to-end negatives on-chip: interval/extraction
-        # (heavy-tailed list lengths, round 4) and the two-level "hier"
-        # pass (~6x slower on the config-5 scene, round-5
-        # scripts/probe_hier.py — see the note above rt_tile.HIER_GROUP).
-        # The override keeps every mode selectable for A/B probes.
-        assert rt_tile._resolve_cull_mode(True, 784) == "argsort"
-        assert rt_tile._resolve_cull_mode(False, 784) == "argsort"
-        assert rt_tile._resolve_cull_mode(True, 84) == "argsort"
-        assert rt_tile._resolve_cull_mode(False, 255) == "argsort"
-        assert rt_tile._resolve_cull_mode(False, 256) == "argsort"
-        assert rt_mxu._resolve_cull_mode(True, 256) == "argsort"
-        old = rt_tile.CULL_MODE
-        try:
-            rt_tile.CULL_MODE = "interval"
-            assert rt_tile._resolve_cull_mode(False, 84) == "interval"
-        finally:
-            rt_tile.CULL_MODE = old
+    o, d = rays
+    _, aabbs, _ = _sorted_tiles(mesh.triangles)
+    tl = jnp.full((o.shape[0],), 3.0) if with_limit else None
+    ns = aabbs.shape[1]
+    exact = np.asarray(jnp.any(
+        block_cull_mask(o, d, aabbs, tl).reshape(-1, RAY_BLOCK, ns), axis=1))
+    hull = np.asarray(group_cull_mask(o, d, aabbs, tl, group=RAY_BLOCK))
+    assert not (exact & ~hull).any()

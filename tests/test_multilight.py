@@ -156,15 +156,16 @@ class TestTwoLightShading:
         assert np.isfinite(gn) and gn > 0
 
 
-class TestFusedMultiLight:
-    def test_fused_kernel_matches_lane_two_lights(self, two_light_scene):
-        """The fused kernel's static per-light unroll (and its per-light
-        RNG streams) must reproduce the XLA path at L=2."""
+class TestSweepMultiLight:
+    def test_sweep_matches_jnp_two_lights(self, two_light_scene):
+        """Per-light shadow sweeps through the kernel's any-hit entry
+        reproduce the XLA path at L=2."""
         cam = Camera.look_at((0, 3, 8), (0, 1, 0), aspect=4 / 3)
         a = np.asarray(render(two_light_scene, cam, 48, 36,
-                              RenderConfig(backend="lane", seed=5)))
+                              RenderConfig(backend="jnp", seed=5)))
         b = np.asarray(render(two_light_scene, cam, 48, 36,
-                              RenderConfig(backend="fused", seed=5)))
+                              RenderConfig(backend="sweep", seed=5,
+                                           interpret=True)))
         diff = np.abs(a - b).max(-1)
         flipped = diff > 1e-2
         assert flipped.mean() <= 2e-3

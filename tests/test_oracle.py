@@ -19,8 +19,9 @@ from esctp1raytracer_tpu.testing import oracle_render
 
 def _compare(scene, lookfrom, lookat, w, h, backend, vfov=60.0):
     cam = Camera.look_at(lookfrom, lookat, vfov=vfov, aspect=w / h)
-    img = np.asarray(render(scene, cam, w, h,
-                            RenderConfig(backend=backend, seed=0)))
+    cfg = RenderConfig(backend=backend, seed=0,
+                       interpret=backend == "sweep")
+    img = np.asarray(render(scene, cam, w, h, cfg))
     ref = oracle_render(scene, lookfrom, lookat, w, h, vfov=vfov)
     diff = np.abs(img - ref).max(axis=-1)
     frac_close = float(np.mean(diff <= 1e-3))
@@ -28,7 +29,7 @@ def _compare(scene, lookfrom, lookat, w, h, backend, vfov=60.0):
 
 
 class TestOracleParity:
-    @pytest.mark.parametrize("backend", ["jnp", "mxu", "pallas"])
+    @pytest.mark.parametrize("backend", ["jnp", "mxu", "sweep", "auto"])
     def test_cornell_pixels(self, backend):
         scene = cornell_box()
         img, ref, diff, frac = _compare(

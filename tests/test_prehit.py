@@ -1,27 +1,20 @@
-"""Exactness of the t-ceiling culling hints (round-3 ROOFLINE work).
+"""Exactness of the sphere t-ceiling hint.
 
-Two hints feed the kernels' cull pre-pass as per-ray t-ceilings:
-* sphere pre-hit (core/intersect.py SPHERE_PREHIT): the best sphere hit
-  bounds the triangle winner;
-* oversized pre-hit (kernels/rt_tile.py PRIMARY_PREHIT): the closest hit
-  among the segregated oversized triangles bounds the winner.
-Both are *hints*: they may only drop blocks whose slab entry lies beyond
-a known real hit, so search results must be bit-identical with them on
-or off.
+argmin_hit hands the best sphere hit to a triangle search as a per-ray
+t-ceiling (core/intersect.py): it bounds the triangle winner, so the
+culled sweep may only drop tiles whose slab entry lies beyond a known
+real hit, and search results must be bit-identical with or without it.
 """
 
 import numpy as np
 import pytest
 
-import esctp1raytracer_tpu.core.intersect as intersect
-import esctp1raytracer_tpu.kernels.rt_tile as rt_tile
 from esctp1raytracer_tpu import Camera
-from esctp1raytracer_tpu.core.intersect import EPS, argmin_hit
-from esctp1raytracer_tpu.kernels.rt_mxu import mxu_tile_search
-from esctp1raytracer_tpu.kernels.rt_tile import tile_tri_search
-from esctp1raytracer_tpu.scene.builders import mesh_scene, mixed_scene
+from esctp1raytracer_tpu.core.intersect import argmin_hit
+from esctp1raytracer_tpu.kernels.sweep_gpu import SweepSearch
+from esctp1raytracer_tpu.scene.builders import mixed_scene
 
-import jax.numpy as jnp
+CULLED = SweepSearch(culled=True, interpret=True)
 
 
 def _rays(scene_eye, look, n=40):
@@ -31,47 +24,19 @@ def _rays(scene_eye, look, n=40):
 
 
 @pytest.fixture(scope="module")
-def mesh():
-    return mesh_scene(subdivisions=3)  # icosphere + oversized ground/light
-
-
-@pytest.fixture(scope="module")
 def mixed():
     return mixed_scene()  # triangles + analytic spheres
 
 
-class TestOversizedPrehit:
-    @pytest.mark.parametrize("search", [tile_tri_search, mxu_tile_search])
-    def test_search_identical_with_prehit(self, mesh, search, monkeypatch):
-        o, d = _rays((0, 2, 6), (0, 1, 0))
-        monkeypatch.setattr(rt_tile, "PRIMARY_PREHIT", False)
-        t0, i0 = search(o, d, mesh.triangles, EPS)
-        monkeypatch.setattr(rt_tile, "PRIMARY_PREHIT", True)
-        t1, i1 = search(o, d, mesh.triangles, EPS)
-        np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-        np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
-
-    def test_min_t_is_true_upper_bound(self, mesh):
-        o, d = _rays((0, 2, 6), (0, 1, 0))
-        _, _, _, ov_buf, _ = rt_tile.tri_constants_sub(mesh.triangles)
-        ub = np.asarray(rt_tile._oversized_min_t(
-            o, d, ov_buf, jnp.float32(EPS).reshape(1)))
-        t, i = tile_tri_search(o, d, mesh.triangles, EPS)
-        t = np.asarray(t)
-        hit = np.asarray(i) >= 0
-        # Wherever the oversized sweep found a hit, the global winner
-        # must be at most that t (it is a real in-table hit).
-        bounded = ub < rt_tile.BIG
-        assert (t[bounded & hit] <= ub[bounded & hit] + 1e-5).all()
-
-
 class TestSpherePrehit:
-    def test_argmin_identical_with_sphere_ceiling(self, mixed, monkeypatch):
+    def test_argmin_identical_with_sphere_ceiling(self, mixed):
         o, d = _rays((0, 2, 8), (0, 1, 0))
-        monkeypatch.setattr(intersect, "SPHERE_PREHIT", False)
-        t0, p0, s0 = argmin_hit(o, d, mixed, tri_search=tile_tri_search)
-        monkeypatch.setattr(intersect, "SPHERE_PREHIT", True)
-        t1, p1, s1 = argmin_hit(o, d, mixed, tri_search=tile_tri_search)
+
+        def no_ceiling(o, d, tris, eps, t_limit=None):
+            return CULLED(o, d, tris, eps)
+
+        t0, p0, s0 = argmin_hit(o, d, mixed, tri_search=no_ceiling)
+        t1, p1, s1 = argmin_hit(o, d, mixed, tri_search=CULLED)
         np.testing.assert_array_equal(np.asarray(p0), np.asarray(p1))
         np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
         np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
@@ -80,5 +45,5 @@ class TestSpherePrehit:
         # Sanity: the fixture actually has sphere winners, so the ceiling
         # test above is not vacuous.
         o, d = _rays((0, 2, 8), (0, 1, 0))
-        _, _, is_sphere = argmin_hit(o, d, mixed, tri_search=tile_tri_search)
+        _, _, is_sphere = argmin_hit(o, d, mixed, tri_search=CULLED)
         assert np.asarray(is_sphere).sum() > 10

@@ -120,31 +120,6 @@ class TestSphereScenes:
 
 
 class TestAutoBackend:
-    def test_auto_picks_lane_for_small_scenes(self, cornell):
-        from esctp1raytracer_tpu.core.render import RenderConfig, _search_fns
-        from esctp1raytracer_tpu.kernels.lane_pallas import lane_tri_search
-
-        search, use_mxu = _search_fns(RenderConfig(backend="auto"), cornell)
-        assert search is lane_tri_search  # ray-lane kernel below 4k tris
-
-    def test_auto_picks_mxtile_for_mid_scenes(self):
-        from esctp1raytracer_tpu.core.render import RenderConfig, _search_fns
-        from esctp1raytracer_tpu.kernels.rt_mxu import mxu_tile_search
-        from esctp1raytracer_tpu.scene.builders import mesh_scene
-
-        scene = mesh_scene(subdivisions=4)  # ~5.6k triangles
-        search, _ = _search_fns(RenderConfig(backend="auto"), scene)
-        assert search is mxu_tile_search
-
-    def test_auto_picks_tile_beyond_one_segment(self):
-        from esctp1raytracer_tpu.core.render import RenderConfig, _search_fns
-        from esctp1raytracer_tpu.kernels.rt_tile import tile_tri_search
-        from esctp1raytracer_tpu.scene.builders import random_scene
-
-        scene = random_scene(40_000)  # > MXU_TRI_LIMIT: segmented regime
-        search, _ = _search_fns(RenderConfig(backend="auto"), scene)
-        assert search is tile_tri_search
-
     def test_auto_renders(self, cornell):
         img = _img(cornell, CAM, 32, RenderConfig(backend="auto"))
         assert np.isfinite(img).all() and img.max() > 0

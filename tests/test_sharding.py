@@ -123,8 +123,8 @@ class TestShardedTraining:
 
 
 class TestShardedAutoBackend:
-    """backend='auto' inside shard_map: the ray shards route to the fused
-    whole-frame kernel (custom VJP) — the production sharded+fused path."""
+    """backend='auto' inside shard_map: each ray shard resolves by
+    platform (the sweep kernel on GPUs, jnp here)."""
 
     def test_sharded_auto_matches_unsharded(self, cornell, eight_devices):
         mesh = make_mesh(rays=8)
@@ -134,8 +134,8 @@ class TestShardedAutoBackend:
         assert_images_match(a, b)
 
     def test_sharded_auto_grad(self, cornell, eight_devices):
-        """One sharded train step through the fused custom VJP: psum'd
-        grads must match the unsharded jax.grad."""
+        """One sharded loss+grad: psum'd grads must match the unsharded
+        jax.grad."""
         mesh = make_mesh(rays=8)
         cfg = RenderConfig(backend="auto")
         target = jnp.zeros((16, 16, 3), jnp.float32)
@@ -154,15 +154,3 @@ class TestShardedAutoBackend:
             gs, gu = np.asarray(gs), np.asarray(gu)
             scale = max(np.abs(gu).max(), 1e-6)
             np.testing.assert_allclose(gs, gu, atol=3e-4 * scale, rtol=3e-3)
-
-    def test_fused_backend_with_prim_axis_falls_back(self, cornell,
-                                                     eight_devices):
-        """backend='fused' on a prims>1 mesh injects the prim-sharded
-        search, which the whole-frame kernel cannot use; it must resolve
-        to the fallback backend (previously: ValueError from
-        _search_fns) and match the unsharded image."""
-        mesh = make_mesh(rays=4, prims=2)
-        cfg = RenderConfig(backend="fused")
-        a = np.asarray(render(cornell, CAM, 32, 32, cfg))
-        b = np.asarray(render_sharded(cornell, CAM, 32, 32, cfg, mesh))
-        assert_images_match(a, b)
